@@ -1,7 +1,8 @@
-"""Per-model fused SGLD throughput (the BENCH_NOTES per-model table).
+"""Per-model SGLD throughput.
 
-Same protocol as bench.py (aggregate fused-window SGLD steps/s on one
-chip), parameterized by model family and kernel.
+Same protocol as bench.py (aggregate SGLD steps/s on one device, the
+fused window kernel where the platform has it), parameterized by model
+family.
 
 Usage: python scripts/bench_model.py --model svjm [--chains 2048]
 """
@@ -67,8 +68,7 @@ def main():
     cfg = sgmcmc.PFScoreConfig(
         n_particles=args.particles, subsequence_length=SUBSEQ,
         buffer_length=BUFFER, minibatch_size=1, smoother="poyiadjis_N",
-        resampler="systematic", resample_mode="auto",
-        rng="kernel" if jax.default_backend() == "tpu" else "host")
+        resampler="systematic", resample_mode="auto")
     score_fn = sgmcmc.make_pf_score_fn(
         api.get_kernel(None), api.grad_statistic, api.grad_statistic_dim,
         api.unpack_grad, cfg, T, prior_mean_var_fn=api.prior_mean_var,
@@ -93,18 +93,18 @@ def main():
     params0 = jax.tree_util.tree_map(
         lambda x: jnp.broadcast_to(x, (args.chains,) + x.shape).copy(), init)
 
-    p, ll = fit(keys, params0, ys)
-    float(jnp.sum(ll[-1]))
+    p, ll = jax.block_until_ready(fit(keys, params0, ys))
     t0 = time.perf_counter()
-    p, ll = fit(keys, p, ys)
-    float(jnp.sum(ll[-1]))
+    p, ll = jax.block_until_ready(fit(keys, p, ys))
     dt = time.perf_counter() - t0
 
     steps_per_s = args.chains * ITERS / dt
     print(json.dumps({
         "model": args.model, "chains": args.chains,
         "particles": args.particles,
-        "steps_per_s": round(steps_per_s, 1)}))
+        "steps_per_s": steps_per_s,
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind}))
 
 
 if __name__ == "__main__":

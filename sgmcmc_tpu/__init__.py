@@ -1,4 +1,4 @@
-"""sgmcmc_tpu — TPU-native stochastic-gradient MCMC for state-space models.
+"""sgmcmc_tpu — stochastic-gradient MCMC for state-space models on accelerators.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
 NumPy package `sgmcmc_ssm` (arXiv:1901.10568 course fork, mounted at
@@ -6,7 +6,7 @@ NumPy package `sgmcmc_ssm` (arXiv:1901.10568 course fork, mounted at
 SGLD-CV/Gibbs), Fisher-identity particle-filter score estimation (Nemeth,
 Poyiadjis O(N)/O(N^2), PaRIS smoothers), exact Kalman message passing as the
 LGSSM oracle, and LGSSM/SVM/GARCH/HMM model families — redesigned as
-vmapped/pjit-sharded `lax.scan` kernels for TPU meshes.
+vmapped/sharded `lax.scan` programs and Pallas kernels for GPUs.
 """
 
 __version__ = "0.1.0"

@@ -10,6 +10,8 @@ from __future__ import annotations
 import itertools
 from typing import Any, Iterable
 
+from ..ops.dispatch import check_resample_mode
+
 # `DEFAULT_OPTIONS` (`svm/driver.py:52-63`)
 DEFAULT_OPTIONS: dict[str, Any] = dict(
     max_num_iters=1000000,
@@ -72,7 +74,8 @@ def sampler_kwargs(options: dict) -> dict:
         N=options.get("N", 1000),
         pf=options.get("pf", "poyiadjis_N"),
         kernel=options.get("kernel"),
-        resample_mode=options.get("resample_mode", "auto"),
+        resample_mode=check_resample_mode(
+            options.get("resample_mode", "auto")),
         partition_style=options.get("partition_style", "uniform"),
     )
     if options.get("kind") is not None:
@@ -84,8 +87,8 @@ def sampler_kwargs(options: dict) -> dict:
     if options.get("bw_chunk") is not None:
         kw["bw_chunk"] = options["bw_chunk"]
     if options.get("rng") is not None:
-        # 'kernel' = in-kernel TPU PRNG (the flagship fused path)
-        kw["rng"] = options["rng"]
+        raise ValueError("option 'rng' was removed with the in-kernel "
+                         "PRNG; proposal normals are drawn with jax.random")
     for k in ("latent_draws", "latent_burnin", "latent_thinning"):
         # SLDS complete-data latent-Gibbs controls (`slds/sampler.py`)
         if options.get(k) is not None:

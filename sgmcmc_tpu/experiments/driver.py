@@ -38,6 +38,7 @@ from ..io import checkpoint as ckpt
 from ..metrics import metric_functions as mf
 from ..metrics.ksd import compute_ksd
 from ..models.registry import get_model
+from ..utils.runtime import enable_compile_cache
 from . import config as cfg
 
 logging.basicConfig(
@@ -370,7 +371,7 @@ def _metric_fns(options, data, sampler):
 def do_fit_multichain(args, options):
     """Multi-chain scan-path fit: C vmapped chains through the public
     `Sampler.fit_scan(num_chains=C)` surface (one compiled program per
-    chunk — the flagship-throughput path, see BENCH_NOTES.md), recording
+    chunk — the flagship-throughput path, see PERF.md), recording
     the stacked trace plus per-coordinate convergence diagnostics
     (split-R-hat / ESS / IACT; the multi-chain protocol of
     artifacts/eurus_garch_validation.md as driver output).
@@ -409,12 +410,6 @@ def do_fit_multichain(args, options):
             f"{type(sampler).__name__} (model {options['model']!r}) has "
             f"none — run it single-chain")
     step_kwargs = cfg.sampler_kwargs(options)
-    if sampler.model.has_pf and step_kwargs.get("kind") is None:
-        # the flagship fused kernels draw their normals in-kernel on TPU
-        # (BENCH_NOTES: rng='kernel'; the sharded path once silently
-        # dropped this and cost 3.5%)
-        step_kwargs.setdefault(
-            "rng", "kernel" if jax.default_backend() == "tpu" else "host")
     eps = options.get("epsilon", 0.1)
     steps = options.get("steps_per_iteration", 1)
     max_time = args.max_time or options.get("max_time", 60)
@@ -982,6 +977,7 @@ def _selected(options_list, experiment_id):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     p = _paths(args.path)
     if args.setup:
         do_setup(args)

@@ -1,6 +1,6 @@
 """Gradient-bias-vs-buffer-size figures (the paper's core claim).
 
-TPU-native reproduction of the reference's
+Accelerator reproduction of the reference's
 `gradient_error_fig_scripts/{lgssm,svm,garch}_grad_compare.py`: fix theta at
 truth, pick a centered subsequence of length L in a series of length T,
 compute a ground-truth gradient (LGSSM: exact buffered Kalman; SVM/GARCH:
@@ -8,7 +8,7 @@ Poyiadjis with very large N averaged over reps), then sweep buffer sizes x
 particle counts x replications of the buffered PF gradient and report
 mean absolute bias / MSE per parameter.
 
-On TPU all (buffer, N, rep) cells vmap/batch; the reference's 50x50 grid of
+On the device all (buffer, N, rep) cells vmap/batch; the reference's 50x50 grid of
 sequential NumPy PFs becomes a handful of jitted batched calls.
 
 Usage: python -m sgmcmc_tpu.experiments.gradient_error_figs --model svm
@@ -30,9 +30,8 @@ from ..ops.subsequence import subsequence_weights
 
 
 # Above this many particles, replicates run as separate device programs
-# instead of one vmapped batch: a 4-rep vmap at N=1e6 crashes the TPU
-# worker (the batched window scan exceeds what one program can schedule),
-# while sequential N=1e6 windows run fine at ~3 s each.
+# instead of one vmapped batch, bounding the live window-scan memory to one
+# replicate's [N, ...] carries.
 SEQUENTIAL_REP_N = 200_000
 
 

@@ -43,7 +43,15 @@ def script_builder(script_name: str, python_script_path: str,
                    script_splits: int = 1, project_root: str | None = None,
                    conda_env_name: str | None = None) -> list[str]:
     """Split experiment arg-dicts into ``script_splits`` shell scripts
-    (`driver_utils.py:14-111`)."""
+    (`driver_utils.py:14-111`).
+
+    The splits are meant to run side by side, one JAX process each.  A
+    JAX process reserves three quarters of a GPU's memory when it first
+    uses the card, so a second process on the same card fails for want
+    of memory: give each split its own card (``CUDA_VISIBLE_DEVICES=i
+    bash <split>.sh``), or a share of one card
+    (``XLA_PYTHON_CLIENT_MEM_FRACTION=0.2`` for up to four splits).
+    """
     make_path(path_to_shell_script)
     log_dir = make_path(os.path.join(path_to_shell_script, "logs"))
     scripts = []

@@ -18,6 +18,8 @@ import numpy as np
 
 from ..models.base import ParticleKernel, StatisticFn
 from ..ops.buffered import run_buffered_pf, window_weights
+from ..ops.dispatch import check_resample_mode, pf_path
+from ..ops.pallas.fused_pf import fused_pf_score, supports_particles
 from ..ops.subsequence import (sample_buffered_window, sample_subsequence,
                                window_length)
 
@@ -66,7 +68,7 @@ class PFScoreConfig:
     minibatch_size: int = 1
     smoother: str = "poyiadjis_N"       # nemeth|poyiadjis_N|poyiadjis_N2|paris|filter
     resampler: str = "multinomial"
-    resample_mode: str = "gather"       # gather|xla|pallas (TPU fast path)
+    resample_mode: str = "gather"       # gather|fused|auto (ops/dispatch.py)
     lambduh: float = 0.95
     n_tilde: int = 2
     partition_style: str = "uniform"
@@ -80,40 +82,18 @@ class PFScoreConfig:
     # KSD configs).  None auto-selects (dense up to N=8192, ~4096-row
     # blocks above); chunking changes only GEMM tiling.
     bw_chunk: int | None = None
-    # 'kernel' generates proposal normals inside the fused Pallas kernel
-    # (hardware PRNG; saves the [W, D*s, B]-per-chain HBM stream).  Only
-    # affects the fused path; 'host' keeps key-deterministic draws.
-    rng: str = "host"
-    # Fused-kernel resampling dot width: merge this many of the s=8 inner
-    # one-hot dots into one wider MXU dot (weight-stationary W1 reuse).
-    qp_merge: int = 1
-    # Software-pipeline the fused kernel's per-step qp gather groups:
-    # issue group i+1's B1 build + MXU dot before group i's VPU tail so
-    # the dot can overlap the tail instead of serializing (VERDICT r2 #3
-    # structured attempt; measured result in BENCH_NOTES).
-    pipeline: bool = False
-    # Two-chain-block interleave: split each fused chain block into
-    # halves A/B and alternate their qp-group dot/tail work, so half B's
-    # VPU phases execute under half A's in-flight MXU dots (r5 probe;
-    # bitwise-identical results, measured delta in BENCH_NOTES).
-    interleave: bool = False
+
+    def __post_init__(self):
+        check_resample_mode(self.resample_mode)
 
 
 def _fused_eligible(config: PFScoreConfig, fused_model) -> bool:
-    """The fully-fused Pallas window kernel handles the systematic-resampled
+    """The fused window kernel handles the systematic-resampled
     Nemeth/Poyiadjis-O(N) smoothers for models providing a FusedModel."""
-    if fused_model is None:
-        return False
-    if config.smoother not in ("poyiadjis_N", "nemeth"):
-        return False
-    if config.resampler != "systematic":
-        return False
-    if config.n_particles % 8 != 0:
-        return False
-    if config.resample_mode == "fused":
-        return True
-    return (config.resample_mode in ("auto", "pallas", "pallas2")
-            and jax.default_backend() == "tpu")
+    return (fused_model is not None
+            and config.smoother in ("poyiadjis_N", "nemeth")
+            and config.resampler == "systematic"
+            and supports_particles(config.n_particles))
 
 
 def make_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
@@ -127,13 +107,13 @@ def make_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
     particle smoother (`_single_noisy_grad_loglikelihood` kind='pf',
     `sgmcmc_sampler.py:364-384`); the minibatch axis is vmapped.  When the
     model supplies a ``fused_model`` bundle and the config qualifies, the
-    whole window runs in one Pallas kernel (`ops/pallas/fused_pf.py`).
+    whole window runs in one Pallas kernel (`ops/pallas/fused_pf.py`;
+    `ops/dispatch.pf_path` decides).
     """
     S = config.subsequence_length
     full = (S == -1) or (S >= T)
     W = T if full else window_length(S, config.buffer_length, T)
-    use_fused = _fused_eligible(config, fused_model)
-    fused_interpret = use_fused and jax.default_backend() != "tpu"
+    path = pf_path(config.resample_mode, _fused_eligible(config, fused_model))
     fused_lambduh = 1.0 if config.smoother == "poyiadjis_N" \
         else config.lambduh
 
@@ -156,15 +136,12 @@ def make_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
                                      jnp.asarray(10.0, dtype))
         else:
             prior_mean, prior_var = prior_mean_var_fn(params)
-        if use_fused:
-            from ..ops.pallas.fused_pf import fused_pf_score
+        if path.fused:
             return fused_pf_score(
                 fused_model, key_pf, params, window, step_w,
                 config.n_particles, prior_mean, prior_var,
-                lambduh=fused_lambduh, interpret=fused_interpret,
-                ess_threshold=config.ess_threshold, rng=config.rng,
-                qp_merge=config.qp_merge, pipeline=config.pipeline,
-                interleave=config.interleave)
+                lambduh=fused_lambduh, interpret=path.interpret,
+                ess_threshold=config.ess_threshold)
         out = run_buffered_pf(
             kernel, stat_fn, params, window,
             key=key_pf, n_particles=config.n_particles,
@@ -222,8 +199,7 @@ def make_seq_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
             raise ValueError(f"window {W} exceeds shortest sequence "
                              f"{min_len}")
     k_chosen = n_seq if num_sequences == -1 else num_sequences
-    use_fused = _fused_eligible(config, fused_model)
-    fused_interpret = use_fused and jax.default_backend() != "tpu"
+    path = pf_path(config.resample_mode, _fused_eligible(config, fused_model))
     fused_lambduh = 1.0 if config.smoother == "poyiadjis_N" \
         else config.lambduh
 
@@ -269,16 +245,12 @@ def make_seq_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
             pm, pv = jnp.zeros((), dtype), jnp.asarray(10.0, dtype)
         else:
             pm, pv = prior_mean_var_fn(params)
-        if use_fused:
-            from ..ops.pallas.fused_pf import fused_pf_score
+        if path.fused:
             return fused_pf_score(
                 fused_model, key_pf, params, window, step_w,
                 config.n_particles, pm, pv, lambduh=fused_lambduh,
-                interpret=fused_interpret,
-                ess_threshold=config.ess_threshold, rng=config.rng,
-                qp_merge=config.qp_merge, step_valid=step_valid,
-                pipeline=config.pipeline,
-                interleave=config.interleave)
+                interpret=path.interpret,
+                ess_threshold=config.ess_threshold, step_valid=step_valid)
         out = run_buffered_pf(
             kernel, stat_fn, params, window, key=key_pf,
             n_particles=config.n_particles, statistic_dim=statistic_dim,

@@ -84,8 +84,8 @@ def save_dataframe(path: str, df) -> None:
 
 def stack_trace(parameters_list):
     """Stack a list of parameter pytrees into one pytree with a leading
-    trace axis and fetch it to host in a single transfer (per-element
-    device_get is ruinously slow on remote TPU backends)."""
+    trace axis and fetch it to host in a single transfer (one transfer per
+    element would pay a device sync each)."""
     import jax.numpy as jnp
     stacked = jax.tree_util.tree_map(
         lambda *xs: jnp.stack([jnp.asarray(x) for x in xs]),

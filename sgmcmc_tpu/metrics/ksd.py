@@ -1,8 +1,8 @@
 """Kernel Stein Discrepancy with the IMQ kernel, as blocked matmuls.
 
-TPU rewrite of `IMQ_KSD` / `compute_KSD`
+JAX rewrite of `IMQ_KSD` / `compute_KSD`
 (`/root/reference/sgmcmc_ssm/trace_metric_functions.py:20-112`): the O(M^2)
-pairwise accumulation becomes dense Gram-matrix algebra (MXU-friendly),
+pairwise accumulation becomes dense Gram-matrix algebra (matmul-friendly),
 blocked to bound memory for long traces.
 
 KSD^2 = (1/M^2) sum_{i,j} [ k(xi,xj) gi.gj
@@ -28,7 +28,7 @@ def _stein_block(xi, gi, mi, xj, gj, mj, c2, beta):
     kp = -beta * base ** (-beta - 1.0)              # dk/d(r2)
     kpp = beta * (beta + 1.0) * base ** (-beta - 2.0)
 
-    gg = gi @ gj.T                                  # [Mi, Mj] (MXU)
+    gg = gi @ gj.T                                  # [Mi, Mj] (matmul)
     # grad_{xj} k = -2 kp diff,  grad_{xi} k = 2 kp diff
     t2 = -2.0 * kp * jnp.einsum('id,ijd->ij', gi, diff)
     t3 = 2.0 * kp * jnp.einsum('jd,ijd->ij', gj, diff)

@@ -1,4 +1,4 @@
-"""AR(p) hidden Markov model (ARPHMM), TPU-native.
+"""AR(p) hidden Markov model (ARPHMM).
 
 z_t ~ Markov(pi),   y_t | z_t = k ~ N(D_k [y_{t-1}; ...; y_{t-p}], R_k)
 
@@ -15,7 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 from ..ops import hmm
 from ..utils.distributions import sample_wishart, wishart_logpdf
@@ -25,7 +25,7 @@ from ..utils.linalg import (lower_tri_mat_inv, mat_to_tril_vector,
 _LOG_2PI = float(np.log(2.0 * np.pi))
 
 
-@struct.dataclass
+@pytree.dataclass
 class ARPHMMParams:
     """ARPHMM parameter pytree ('logit' pi parameterization)."""
     logit_pi: jax.Array      # (K, K)
@@ -319,7 +319,7 @@ def windowed_complete_gradient(params: ARPHMMParams, window, valid,
 # Prior / projection / preconditioner (same helper structure as GaussHMM)
 # --------------------------------------------------------------------------
 
-@struct.dataclass
+@pytree.dataclass
 class ARPHMMPrior:
     alpha_pi: jax.Array      # (K, K)
     mean_D: jax.Array        # (K, m, d)

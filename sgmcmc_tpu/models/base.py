@@ -1,4 +1,4 @@
-"""Model abstraction for the TPU-native SG-MCMC framework.
+"""Model abstraction for the SG-MCMC framework.
 
 The reference implements particle kernels as *stateful* objects mutated per
 timestep (`/root/reference/sgmcmc_ssm/particle_filters/kernels.py:9-21`:

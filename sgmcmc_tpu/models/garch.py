@@ -1,4 +1,4 @@
-"""GARCH(1,1)-with-observation-noise model, TPU-native.
+"""GARCH(1,1)-with-observation-noise model.
 
 sigma2_t = alpha + beta x_{t-1}^2 + gamma sigma2_{t-1},
 x_t ~ N(0, sigma2_t),   y_t = x_t + N(0, R)
@@ -16,7 +16,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree
 
 from ..utils.distributions import beta_logpdf, invgamma_logpdf
 from .base import ParticleKernel
@@ -24,7 +24,7 @@ from .base import ParticleKernel
 _LOG_2PI = 1.8378770664093453
 
 
-@struct.dataclass
+@pytree.dataclass
 class GARCHParams:
     """GARCH parameter pytree (unconstrained reference coordinates)."""
     log_mu: jax.Array         # (1,)
@@ -370,7 +370,7 @@ def unpack_grad(stat: jax.Array) -> GARCHParams:
 # plus Wishart on Rinv (`garch/parameters.py`)
 # --------------------------------------------------------------------------
 
-@struct.dataclass
+@pytree.dataclass
 class GARCHPrior:
     scale_mu: jax.Array
     shape_mu: jax.Array

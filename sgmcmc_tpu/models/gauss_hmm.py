@@ -1,4 +1,4 @@
-"""Gaussian hidden Markov model (GaussHMM), TPU-native.
+"""Gaussian hidden Markov model (GaussHMM).
 
 z_t ~ Markov(pi),   y_t | z_t = k ~ N(mu_k, R_k)
 
@@ -15,7 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 from ..ops import hmm
 from ..utils.distributions import sample_wishart, wishart_logpdf
@@ -25,7 +25,7 @@ from ..utils.linalg import (lower_tri_mat_inv, mat_to_tril_vector,
 _LOG_2PI = float(np.log(2.0 * np.pi))
 
 
-@struct.dataclass
+@pytree.dataclass
 class GaussHMMParams:
     """GaussHMM parameter pytree ('logit' pi parameterization)."""
     logit_pi: jax.Array      # (K, K)
@@ -315,7 +315,7 @@ def windowed_complete_gradient(params: GaussHMMParams, window, valid,
 # Wishart(Rinv_k), Normal(mu_k | R_k)
 # --------------------------------------------------------------------------
 
-@struct.dataclass
+@pytree.dataclass
 class GaussHMMPrior:
     alpha_pi: jax.Array      # (K, K)
     mean_mu: jax.Array       # (K, m)

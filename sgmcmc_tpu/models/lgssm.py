@@ -1,4 +1,4 @@
-"""Linear-Gaussian state-space model (LGSSM), TPU-native.
+"""Linear-Gaussian state-space model (LGSSM).
 
 x_t = A x_{t-1} + N(0, Q),   y_t = C x_t + N(0, R)
 
@@ -19,7 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 from ..ops import kalman
 from ..utils.distributions import (matrix_normal_logpdf, sample_wishart,
@@ -32,7 +32,7 @@ from .base import ParticleKernel
 _LOG_2PI = float(np.log(2.0 * np.pi))
 
 
-@struct.dataclass
+@pytree.dataclass
 class LGSSMParams:
     """LGSSM parameter pytree (reference coordinates)."""
     A: jax.Array            # (n, n)
@@ -744,7 +744,7 @@ def unpack_grad(stat: jax.Array, n: int, m: int) -> LGSSMParams:
 # Prior (`lgssm/parameters.py:44-56`)
 # --------------------------------------------------------------------------
 
-@struct.dataclass
+@pytree.dataclass
 class LGSSMPrior:
     mean_A: jax.Array        # (n, n)
     var_col_A: jax.Array     # (n,)

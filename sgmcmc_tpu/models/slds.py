@@ -1,4 +1,4 @@
-"""Switching linear dynamical system (SLDS), TPU-native.
+"""Switching linear dynamical system (SLDS).
 
 z_t ~ Markov(pi),  x_t = A_{z_t} x_{t-1} + N(0, Q_{z_t}),
 y_t = C x_t + N(0, R)
@@ -18,7 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 from ..ops import hmm
 from ..utils.distributions import sample_wishart, wishart_logpdf
@@ -28,7 +28,7 @@ from ..utils.linalg import (mat_to_tril_vector, pos_def_mat_inv,
 _LOG_2PI = float(np.log(2.0 * np.pi))
 
 
-@struct.dataclass
+@pytree.dataclass
 class SLDSParams:
     """SLDS parameter pytree (`slds/parameters.py:26-50`)."""
     logit_pi: jax.Array       # (K, K)
@@ -286,7 +286,7 @@ def complete_data_loglikelihood(params: SLDSParams, observations, x, z):
 def gradient_complete_data_loglikelihood(params: SLDSParams, observations,
                                          x, z) -> SLDSParams:
     """Autodiff complete-data score (`slds/helper.py:1122-1187`) — the
-    complete-data likelihood is closed-form, so the TPU-native gradient is
+    complete-data likelihood is closed-form, so the vectorized gradient is
     jax.grad of it (numerically identical to the hand-derived formulas)."""
     return jax.grad(
         lambda p: complete_data_loglikelihood(p, observations, x, z))(params)
@@ -296,7 +296,7 @@ def gradient_complete_data_loglikelihood(params: SLDSParams, observations,
 # Prior + Gibbs (`slds/parameters.py`, conjugate updates)
 # --------------------------------------------------------------------------
 
-@struct.dataclass
+@pytree.dataclass
 class SLDSPrior:
     alpha_pi: jax.Array       # (K, K)
     mean_A: jax.Array         # (K, n, n)

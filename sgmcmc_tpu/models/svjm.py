@@ -1,4 +1,4 @@
-"""Stochastic-volatility jump model (SVJM), TPU-native.
+"""Stochastic-volatility jump model (SVJM).
 
 x_t = A x_{t-1} + N(0, Q) + J_t * N(0, QJ),   J_t ~ Bernoulli(pJ),
 y_t ~ N(0, exp(x_t) * R)
@@ -29,7 +29,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree
 
 from ..utils.distributions import (beta_logpdf, matrix_normal_logpdf,
                                    sample_beta, sample_wishart,
@@ -40,7 +40,7 @@ from .base import ParticleKernel
 _LOG_2PI = 1.8378770664093453
 
 
-@struct.dataclass
+@pytree.dataclass
 class SVJMParams:
     """SVJM parameter pytree (unconstrained reference-style coordinates)."""
     A: jax.Array            # (1, 1) AR coefficient (phi)
@@ -512,7 +512,7 @@ def get_fused(name: str | None = None):
 # Beta(pJ) with the GARCH-style unconstrained-space gradient convention.
 # --------------------------------------------------------------------------
 
-@struct.dataclass
+@pytree.dataclass
 class SVJMPrior:
     mean_A: jax.Array        # (1, 1)
     var_col_A: jax.Array     # (1,)

@@ -1,6 +1,6 @@
 """Buffered particle filter/smoother wrapper — the hot loop, as one scan.
 
-TPU-native replacement for `pf_wrapper` / `buffered_pf_wrapper`
+Replacement for `pf_wrapper` / `buffered_pf_wrapper`
 (`/root/reference/sgmcmc_ssm/particle_filters/buffered_smoother.py:12-199`):
 the reference's per-timestep Python loop with kernel mutation and
 function-swapping becomes a single ``lax.scan`` over a fixed-length window,
@@ -83,6 +83,11 @@ def run_buffered_pf(
 ) -> PFOutput:
     """Run ``W`` steps of a buffered particle smoother over one window.
 
+    ``resample_mode``: ``'gather'`` draws ancestor indices with the
+    `resampling` schemes and gathers each carried array; ``'auto'``
+    resamples the joint (particles, statistics) matrix in one gather
+    (`resampling.resample_apply`).
+
     ``step_weights`` carries both the buffering (zero outside ``[t1, tL)``)
     and the subsequence-unbiasedness weights; ``in_window`` gates the
     log-likelihood accumulation (`buffered_smoother.py:96-126`).
@@ -112,11 +117,11 @@ def run_buffered_pf(
         stat_fn = elementwise_statistic_fn(stat_fn, t1, window_length,
                                            statistic_dim)
         H = statistic_dim * window_length
-        # The elementwise carry is [N, window * dim] — orders of magnitude
-        # wider than the Pallas resample-apply kernel's VMEM budget.  Route
-        # the statistic resampling through plain gathers.
-        if resample_mode in ("auto", "pallas", "pallas2", "fused"):
-            resample_mode = "gather"
+    if resample_mode not in ("gather", "auto"):
+        raise ValueError(
+            f"run_buffered_pf resample_mode must be 'gather' or 'auto', got "
+            f"'{resample_mode}' (the fused window kernel runs through "
+            f"inference.sgmcmc.make_pf_score_fn)")
 
     step = make_smoother_step(smoother, kernel, stat_fn,
                               resampler_name=resampler, lambduh=lambduh,

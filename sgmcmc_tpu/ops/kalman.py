@@ -9,7 +9,7 @@ Messages are Gaussian potentials in information form
 ``exp(-0.5 x^T J x + h^T x) * exp(log_c)`` with ``h = mean_precision``,
 ``J = precision`` (`lgssm/helper.py:17-29`).
 
-Design deltas from the reference (intentional, TPU-first):
+Design deltas from the reference (intentional, accelerator-first):
   * the T-loop is a `lax.scan`; all-t message stacks come out of the scan,
   * the gradient assembles per-step contributions with batched solves and
     einsums over the stacked messages instead of a Python loop,

@@ -1,6 +1,6 @@
 """Parallel-in-time Kalman filtering/smoothing via associative scans.
 
-TPU-native time-axis parallelization of the LGSSM oracle: the reference's
+Time-axis parallelization of the LGSSM oracle: the reference's
 sequential per-timestep filter loop (`lgssm/helper.py:53-122`) is
 re-derived as an *associative* operation on Gaussian conditionals, so
 `jax.lax.associative_scan` evaluates every filtered (and smoothed)
@@ -11,13 +11,13 @@ This is the SURVEY §2.4 "sequence/time axis" component: the buffered
 SG-MCMC estimators never need it (their windows are short), but the
 full-data passes — the exact-gradient oracle, LD baselines, KSD
 full-trace scores, offline evaluation — run over the whole series, where
-log-depth wins on TPU once T is large.
+log-depth wins on an accelerator once T is large.
 
 Filtering elements are 5-tuples (A, b, C, eta, J) representing
 p(x_t | x_{t-1}, y_cond) ∝ N(x_t; A x_{t-1} + b, C) x exp(eta·x_{t-1}
 - ½ x_{t-1}ᵀ J x_{t-1}); smoothing elements are (E, g, L) affine
 Gaussian conditionals combined right-to-left.  All combinators operate
-on stacked [T, ...] operands (batched matmuls/solves -> MXU-friendly).
+on stacked [T, ...] operands (batched matmuls/solves).
 
 Conventions match `ops/kalman.py`: model x_t = A x_{t-1} + N(0, Q),
 y_t = C_emit x_t + N(0, R); the prior message is information-form

@@ -1,25 +1,28 @@
 """Fully-fused buffered particle smoother window — one Pallas kernel.
 
-TPU-native fusion of the whole `pf_wrapper` hot loop
+Fusion of the whole `pf_wrapper` hot loop
 (`/root/reference/sgmcmc_ssm/particle_filters/buffered_smoother.py:93-133`
 with the Nemeth/Poyiadjis-O(N) step `pf.py:138-181`): all W window steps —
-weight normalization + CDF, systematic resampling (two-level one-hot, see
-`resample.py`), proposal, reweighting, additive-statistic update and the
-log-likelihood accumulator — run inside a single kernel whose carries
-(particles, log-weights, statistics) never leave VMEM.
+weight normalization + CDF, systematic resampling, proposal, reweighting,
+additive-statistic update and the log-likelihood accumulator — run inside
+one kernel, written for the GPU through Pallas' Triton route.
 
-Layout: the particle axis is stored *folded* as [s, B] with particle
-``j = s*p + q`` at (row q, lane p), s = 8, B = N/s.  Elementwise model
-ops are layout-oblivious, the CDF cumsum splits into a sublane cumsum
-plus a lane cumsum of column totals, and — the point of the layout — the
-two-level gather matrix W1 (rows (k, q), lanes p) is exactly the stacked
-rows of the folded value arrays: operand assembly costs zero relayouts.
+Layout: one program per chain; the chain's N particles (a power of two)
+are one block.  Particles, log-weights and statistics stay in registers
+across the W steps.  Resampling is the only cross-particle data movement:
+each step writes the normalized CDF and the carried values to a per-chain
+scratch row (L1/L2-resident), finds every ancestor of the sorted
+systematic comb by a branch-free binary search against that CDF, and
+fetches the resampled values with gathered loads.  A block barrier orders
+the scratch writes against the gathers.  Selections follow the plain
+gather path (`resampling.systematic_resampling`: ``searchsorted(cdf, pos,
+'left')``); only the CDF's summation order differs.
 
 The model plugs in through :class:`FusedModel` — shape-polymorphic
 elementwise functions over lists of per-state-dimension arrays, so one
-kernel serves every scalar-observation model family.  Randomness (the
-per-step proposal normals and systematic-resampling offsets) is pre-drawn
-outside with `jax.random`, keeping the estimator deterministic in the key.
+kernel serves every scalar-observation model family.  Randomness (x0, the
+per-step proposal normals and systematic offsets) is pre-drawn outside
+with `jax.random`, keeping the estimator deterministic in the key.
 """
 from __future__ import annotations
 
@@ -30,9 +33,7 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .resample import TWO_LEVEL_S, _split3_kernel
+from jax.experimental.pallas import triton as pltriton
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +42,7 @@ class FusedModel:
 
     All callables are elementwise and shape-polymorphic: state/statistic
     arrays arrive as lists of arrays of identical (arbitrary) shape, and
-    parameters as a list of same-rank broadcastable scalars (one per
-    entry of ``pack_params``).
+    parameters as a list of scalars (one per entry of ``pack_params``).
 
     * ``pack_params(params) -> [P]`` flattens the parameter pytree.
     * ``propose(pvec, z, x, y) -> x'`` — ``z``/``x``/``x'`` lists of D arrays.
@@ -78,404 +78,188 @@ class FusedModel:
                      self.stat, self.init, self.n_noise))
 
 
-def _max2(x):
-    """max over (axis 1, axis 2) with keepdims — sequential single-axis
-    reduces (multi-axis reductions crash this Mosaic version)."""
-    return jnp.max(jnp.max(x, axis=2, keepdims=True), axis=1, keepdims=True)
+def supports_particles(n_particles: int) -> bool:
+    """The kernel holds a chain's particles as one power-of-two block."""
+    return n_particles >= 16 and n_particles & (n_particles - 1) == 0
 
 
-def _sum2(x):
-    """sum over (axis 1, axis 2) with keepdims, sequentially."""
-    return jnp.sum(jnp.sum(x, axis=2, keepdims=True), axis=1, keepdims=True)
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
 
 
-def _cumsum_shift(x: jax.Array, axis: int) -> jax.Array:
-    """Inclusive cumulative sum via a log-tree of shifted adds (Mosaic has
-    no cumsum primitive; concatenate-shift lowers to cheap lane/sublane
-    shifts)."""
-    n = x.shape[axis]
-    sh = 1
-    while sh < n:
-        zeros_shape = list(x.shape)
-        zeros_shape[axis] = sh
-        zeros = jnp.zeros(zeros_shape, x.dtype)
-        idx = [slice(None)] * x.ndim
-        idx[axis] = slice(0, n - sh)
-        x = x + jnp.concatenate([zeros, x[tuple(idx)]], axis=axis)
-        sh *= 2
-    return x
+def _num_warps(n_particles: int) -> int:
+    """Eight particles per thread at N=1024 (4 warps), clamped to [1, 8]."""
+    return max(1, min(8, n_particles // 256))
 
 
-def _box_muller(shape):
-    """Standard normals from the in-kernel PRNG (Box-Muller on 23-bit
-    uniforms; `prng_seed` must have been called).  Verified to lower and
-    produce correct moments on this Mosaic (scripts/tpu_probe_kernel_rng.py)."""
-    b1 = pltpu.prng_random_bits(shape)
-    b2 = pltpu.prng_random_bits(shape)
-    u1 = ((b1 & 0x7fffff).astype(jnp.float32) + 0.5) * (2.0 ** -23)
-    u2 = ((b2 & 0x7fffff).astype(jnp.float32) + 0.5) * (2.0 ** -23)
-    return jnp.sqrt(-2.0 * jnp.log(u1)) * jnp.cos(
-        (2.0 * 3.14159265358979) * u2)
+def _normalize(logw):
+    """(shift, un-normalized weights, total) of a log-weight block."""
+    m = jnp.max(logw)
+    mf = jnp.where(jnp.isfinite(m), m, 0.0)
+    w = jnp.exp(logw - mf)
+    return mf, w, jnp.sum(w)
 
 
-def _fused_window_kernel(model: FusedModel, W: int, s: int, B: int,
-                         lambduh: float, ess_threshold: float | None,
-                         kernel_rng: bool, qp_merge: int, hi_only: bool,
-                         valid_gate: bool, pipeline: bool, interleave: bool,
-                         pvec_ref,      # [CB, P, B] f32 VMEM (lane-replicated)
-                         x0_ref,        # [CB, D*s, B] f32 VMEM
-                         normals_ref,   # [CB, W, Z*s, B] f32 VMEM, or (with
-                                        # kernel_rng) [CB, 1] int32 SMEM seeds
-                         aux_ref,       # [CB, 3*W or 4*W, B] f32 VMEM: rows
-                                        # [y_t | w_t | xi_t (| v_t)],
-                                        # lane-replicated
-                         out_ref):      # [CB, 1, H+1] f32 VMEM
-    D, H = model.n_state, model.n_stat
-    NZ = model.noise_dims
+def _window_kernel(model: FusedModel, W: int, N: int, lambduh: float,
+                   ess_threshold: float | None, valid_gate: bool,
+                   interpret: bool,
+                   pvec_ref,      # [C, P]
+                   x0_ref,        # [C, D, N]
+                   normals_ref,   # [C, W, Z, N]
+                   aux_ref,       # [C, 4, W]: rows y_t | w_t | xi_t | v_t
+                   out_ref,       # [C, NO]: H statistics, loglik, padding
+                   scratch_ref):  # [C, K+1, N]: carried values, then CDF
+    D, H, Z = model.n_state, model.n_stat, model.noise_dims
     K = D + H
-    CB = x0_ref.shape[0]
-    N = s * B
+    c = pl.program_id(0)
     fdt = jnp.float32
-    if kernel_rng:
-        # One stream per grid block: proposal normals are generated on the
-        # fly instead of streaming a [W, D*s, B] array per chain from HBM.
-        pltpu.prng_seed(normals_ref[0, 0], pl.program_id(0))
+    jf = jax.lax.broadcasted_iota(jnp.int32, (N,), 0).astype(fdt)
+    log_n = jnp.log(float(N))
+    pv = [pvec_ref[c, i] for i in range(model.n_param)]
 
-    def fiota(shape, dim):
-        return jax.lax.broadcasted_iota(jnp.int32, shape, dim).astype(fdt)
+    def barrier():
+        # block-wide: orders this chain's scratch writes against the
+        # gathered loads (the interpreter runs one program serially)
+        if not interpret:
+            pltriton.debug_barrier()
 
-    lane_iota = fiota((CB, 1, B), 2)
-    sub_iota_col = fiota((CB, B, 1), 1)
-    q_iota = fiota((CB, s, B), 1)
-    # particle index j = s*p + q at folded (row q, lane p)
-    j_fold = s * fiota((CB, s, B), 2) + q_iota
-
-    # Lane-replicated parameter rows [CB, 1, B].  (Lane-offset slices of
-    # [CB, 1, P] crash Mosaic when broadcast; sublane rows are safe.)
-    pv = [pvec_ref[:, i:i + 1, :] for i in range(model.n_param)]
+    def write_carry(V):
+        for k in range(K):
+            scratch_ref[c, k, :] = V[k]
 
     def step(t, carry):
-        V, logw, ll = carry                 # [CB,K*s,B], [CB,s,B], [CB,1,B]
-        y_t = aux_ref[:, pl.ds(t, 1), :]                    # [CB,1,B]
-        w_t = aux_ref[:, pl.ds(W + t, 1), :]                # [CB,1,B]
-        xi_row = aux_ref[:, pl.ds(2 * W + t, 1), :]         # [CB,1,B]
-        xi_t = jnp.max(xi_row, axis=2, keepdims=True)       # [CB,1,1]
+        V, logw, ll = carry
+        y_t = aux_ref[c, 0, t]
+        w_t = aux_ref[c, 1, t]
+        xi_t = aux_ref[c, 2, t]
 
-        # ---- normalized CDF in folded j-order + loglik increment
-        m = _max2(logw)
-        mf = jnp.where(jnp.isfinite(m), m, 0.0)
-        w = jnp.exp(logw - mf)
-        colsum = jnp.sum(w, axis=1, keepdims=True)            # [CB,1,B]
-        lane_incl = _cumsum_shift(colsum, axis=2)
-        lane_excl = lane_incl - colsum
-        csum = _cumsum_shift(w, axis=1) + lane_excl           # [CB,s,B]
-        # total weight as a reduce (a lane-offset slice of lane_incl has a
-        # non-replicated layout whose broadcast crashes Mosaic)
-        tot = jnp.sum(colsum, axis=2, keepdims=True)          # [CB,1,1]
+        mf, w, tot = _normalize(logw)
         ok = tot > 0
+        # deferred loglik increment of the previous step's new weights
+        # (`buffered_smoother.py:124`): logw here IS that step's logw_new,
+        # and mf/tot are the reduces the increment needs.
+        w_prev = jnp.where(t > 0, aux_ref[c, 1, jnp.maximum(t - 1, 0)], 0.0)
+        inc = mf + jnp.log(jnp.where(ok, tot, 1.0)) - log_n
+        ll = ll + jnp.where(w_prev != 0, w_prev * jnp.where(ok, inc, -jnp.inf),
+                            0.0)
+        probs = jnp.where(ok, w / jnp.where(ok, tot, 1.0), 1.0 / N)
+        if lambduh != 1.0:
+            S_bar = [jnp.sum(V[D + h] * probs) for h in range(H)]
 
-        # Deferred loglik increment for the PREVIOUS step's new weights
-        # (`buffered_smoother.py:124`): logw here IS logw_new of step t-1,
-        # and mf/tot above are exactly the reduces the increment needs —
-        # computing it here (and the final step's in the epilogue) saves a
-        # max-tree, an exp over [s,B], and a sum-tree per step.  Row
-        # W + t - 1 at t=0 dereferences a ys row, masked out by prev_mask.
-        prev_mask = jnp.where(t > 0, 1.0, 0.0)
-        w_prev = aux_ref[:, pl.ds(W + t - 1, 1), :]           # [CB,1,B]
-        ll_inc = mf + jnp.log(jnp.where(ok, tot, 1.0)) - jnp.log(float(N))
-        ll = ll + prev_mask * w_prev * jnp.where(ok, ll_inc, -jnp.inf)
-        cdf = jnp.where(ok, csum / jnp.where(ok, tot, 1.0),
-                        (j_fold + 1.0) / N)
-
+        # ---- systematic resampling: CDF -> ancestors -> gathered values
+        scratch_ref[c, K, :] = jnp.cumsum(probs)
+        barrier()
+        pos = (jf + xi_t) / N
+        idx = jnp.zeros((N,), jnp.int32)
+        half = N // 2
+        while half >= 1:          # idx = min(#{j: cdf_j < pos}, N - 1)
+            probe = pltriton.load(scratch_ref.at[c, K, idx + (half - 1)])
+            idx = jnp.where(probe < pos, idx + half, idx)
+            half //= 2
+        Vr = [pltriton.load(scratch_ref.at[c, k, idx]) for k in range(K)]
+        barrier()
         if ess_threshold is not None:
-            # ESS gate (adaptive-resampling option): skip the gather when
-            # ESS >= thr*N, carrying the normalized-to-uniform log weights
-            # into the next importance weights.  All masks/scalars derive
-            # from reductions (broadcast-safe on this Mosaic).
-            sumsq = _sum2(w * w)                              # [CB,1,1]
+            # ESS gate: keep the particles and carry the normalized-to-
+            # uniform weights when ESS >= thr * N (`smoothers._ess_gate`)
+            sumsq = jnp.sum(w * w)
             ess = tot * tot / jnp.where(sumsq > 0, sumsq, 1.0)
             do_res = jnp.logical_or(ess < ess_threshold * N,
                                     jnp.logical_not(ok))
-            carried = logw - mf - jnp.log(jnp.where(ok, tot, 1.0)) \
-                + jnp.log(float(N))
-            carried = jnp.where(ok, carried, 0.0)
-
-        if lambduh != 1.0:
-            probs = jnp.where(ok, w / jnp.where(ok, tot, 1.0), 1.0 / N)
-            Sh = V[:, D * s:].reshape(CB, H, s, B)
-            S_bar = jnp.sum(jnp.sum(Sh * probs[:, None], axis=3,
-                                    keepdims=True), axis=2,
-                            keepdims=True)                    # [CB,H,1,1]
-
-        # ---- two-level gather operands (zero relayouts by construction)
-        vhi = V.astype(jnp.bfloat16)
-        chi, cmid, clo = _split3_kernel(cdf)
-        if hi_only:
-            # lossy structural variant: single bf16 row per value (the CDF
-            # rows stay 3-split-exact so resampling indices are unchanged);
-            # gathered values round to bf16 (~8-bit mantissa)
-            W1 = jnp.concatenate([vhi, chi, cmid, clo], axis=1)
-        else:
-            vlo = (V - vhi.astype(fdt)).astype(jnp.bfloat16)
-            W1 = jnp.concatenate([vhi, vlo, chi, cmid, clo], axis=1)
-        # block boundaries = last cdf row; cdf is cumulative in q, so the
-        # sublane max IS row s-1 (and carries a broadcast-safe layout)
-        bnd_row = jnp.max(cdf, axis=1, keepdims=True)         # [CB,1,B]
-        # pre-shifted boundaries: B1 = 1{bnd[l-1] <= pos < bnd[l]} comes
-        # from two compares against (bnd_prev, bnd) instead of lane-shifting
-        # the big [B',B] one-hot matrix inside every qp iteration (positions
-        # are > 0, so -1 acts as the l=0 sentinel)
-        bnd_prev = jnp.concatenate(
-            [jnp.full_like(bnd_row[:, :, :1], -1.0), bnd_row[:, :, :-1]],
-            axis=2)                                           # [CB,1,B]
-
-        Ks = K * s
-
-        full = slice(None)
-
-        def make_B1(qp0, sl=full):
-            # one dot for qp_merge sub-rows: stack their B1 blocks along
-            # the sublane axis so the (weight-stationary) W1 matrix is
-            # loaded into the MXU once per group instead of once per qp
-            if qp_merge == 1:
-                posc = (s * sub_iota_col[sl]
-                        + (qp0 + xi_t[sl])) / N               # [.,B',1]
-            else:
-                qp_off = fiota((CB, qp_merge * B, 1), 1)[sl] // B
-                sub_in = fiota((CB, qp_merge * B, 1), 1)[sl] % B
-                posc = (s * sub_in + (qp0 + qp_off + xi_t[sl])) / N
-            return ((posc >= bnd_prev[sl]).astype(jnp.bfloat16)
-                    - (posc >= bnd_row[sl]).astype(jnp.bfloat16))
-
-        def do_dot(B1, sl=full):
-            return jax.lax.dot_general(
-                W1[sl], B1, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=fdt)                   # [.,R,g*B']
-
-        def tails(G, qp0, outs, sl=full, n=CB):
-            for gi in range(qp_merge):
-                qp = qp0 + gi
-                Gq = G if qp_merge == 1 else \
-                    G[:, :, gi * B:(gi + 1) * B]
-                if hi_only:
-                    vals = Gq[:, :Ks]                         # [.,K*s,B']
-                    c0 = Ks
-                else:
-                    vals = Gq[:, :Ks] + Gq[:, Ks:2 * Ks]
-                    c0 = 2 * Ks
-                c = (Gq[:, c0:c0 + s]
-                     + Gq[:, c0 + s:c0 + 2 * s]) \
-                    + Gq[:, c0 + 2 * s:c0 + 3 * s]            # exact f32
-                posr = (s * lane_iota[sl] + (qp + xi_t[sl])) / N
-                M2 = (posr >= c).astype(fdt)
-                ones2 = jnp.ones_like(M2[:, :1])
-                P2 = jnp.concatenate([ones2, M2[:, :-1]], axis=1) - M2
-                Z = vals * jnp.concatenate([P2] * K, axis=1)  # [.,K*s,B']
-                outs.append(Z.reshape(n, K, s, B).sum(axis=2))
-
-        groups = list(range(0, s, qp_merge))
-        outs = []
-        if interleave and CB >= 2 and CB % 2 == 0:
-            # two-chain-block interleave (r5 perf probe): split the block
-            # into halves A/B along the chain axis and alternate their
-            # qp-group work software-pipelined — half B's B1 build / VPU
-            # tail is issued under half A's in-flight MXU dot and vice
-            # versa.  Bitwise-identical chain results (batch-split dots).
-            h = CB // 2
-            sls = (slice(0, h), slice(h, CB))
-            stream = [(si, qp0) for qp0 in groups
-                      for si in range(2)]
-            outs_h = ([], [])
-
-            def issue(i):
-                si, qp0 = stream[i]
-                return do_dot(make_B1(qp0, sls[si]), sls[si])
-
-            G_cur = issue(0)
-            for i, (si, qp0) in enumerate(stream):
-                G_next = issue(i + 1) if i + 1 < len(stream) else None
-                tails(G_cur, qp0, outs_h[si], sls[si], h)
-                G_cur = G_next
-            Vr = jnp.concatenate(
-                [jnp.stack(o, axis=2).reshape(h, K * s, B)
-                 for o in outs_h], axis=0)                    # rows (k, q)
-        elif pipeline:
-            # software pipeline across qp groups: issue group i+1's B1
-            # build + gather dot BEFORE group i's VPU tail, so the
-            # (asynchronous) MXU dot can overlap the tail's vector work
-            # instead of serializing dot -> tail -> dot -> tail
-            G_cur = do_dot(make_B1(groups[0]))
-            for idx, qp0 in enumerate(groups):
-                G_next = (do_dot(make_B1(groups[idx + 1]))
-                          if idx + 1 < len(groups) else None)
-                tails(G_cur, qp0, outs)
-                G_cur = G_next
-            Vr = jnp.stack(outs, axis=2).reshape(CB, K * s, B)
-        else:
-            for qp0 in groups:
-                tails(do_dot(make_B1(qp0)), qp0, outs)
-            Vr = jnp.stack(outs, axis=2).reshape(CB, K * s, B)  # rows (k, q)
-        if ess_threshold is not None:
-            Vr = jnp.where(do_res, Vr, V)
-
-        xr = [Vr[:, d * s:(d + 1) * s] for d in range(D)]
-        sr = [Vr[:, (D + h) * s:(D + h + 1) * s] for h in range(H)]
+            carried = jnp.where(
+                ok, logw - mf - jnp.log(jnp.where(ok, tot, 1.0)) + log_n, 0.0)
+            Vr = [jnp.where(do_res, a, b) for a, b in zip(Vr, V)]
 
         # ---- propose / reweight / statistic update
-        if kernel_rng:
-            zfull = _box_muller((CB, NZ * s, B))
-            z = [zfull[:, d * s:(d + 1) * s, :] for d in range(NZ)]
-        else:
-            z = [normals_ref[:, t, d * s:(d + 1) * s, :] for d in range(NZ)]
+        xr, sr = Vr[:D], Vr[D:]
+        z = [normals_ref[c, t, d, :] for d in range(Z)]
         x_new = model.propose(pv, z, xr, y_t)
         logw_new = model.reweight(pv, xr, x_new, y_t)
         if ess_threshold is not None:
             logw_new = logw_new + jnp.where(do_res, 0.0, carried)
-
         h = model.stat(pv, xr, x_new, y_t)
         if lambduh == 1.0:
             s_new = [sr[i] + w_t * h[i] for i in range(H)]
         else:
-            s_new = [lambduh * sr[i] + (1.0 - lambduh) * S_bar[:, i]
+            s_new = [lambduh * sr[i] + (1.0 - lambduh) * S_bar[i]
                      + w_t * h[i] for i in range(H)]
-        V_new = jnp.concatenate(list(x_new) + s_new, axis=1)
+        V_new = list(x_new) + s_new
         if valid_gate:
             # padded-tail gate (multi-sequence full windows): freeze the
-            # carries on invalid steps so padding beyond the true sequence
-            # end cannot perturb the filter or the statistic ancestry.  The
-            # deferred loglik increments stay correct: the first invalid
-            # step still applies the last active step's increment (its
-            # w_prev != 0), later ones carry w_prev == 0.
-            v_row = aux_ref[:, pl.ds(3 * W + t, 1), :]        # [CB,1,B]
-            act = jnp.max(v_row, axis=2, keepdims=True) > 0   # [CB,1,1]
-            V_new = jnp.where(act, V_new, V)
+            # carries on invalid steps.  The deferred increments stay
+            # right: the first invalid step still applies the last active
+            # step's increment, later ones carry w == 0.
+            act = aux_ref[c, 3, t] > 0
+            V_new = [jnp.where(act, a, b) for a, b in zip(V_new, V)]
             logw_new = jnp.where(act, logw_new, logw)
-        return (V_new, logw_new, ll)
+        write_carry(V_new)
+        return tuple(V_new), logw_new, ll
 
-    V0 = jnp.concatenate(
-        [x0_ref[:], jnp.zeros((CB, H * s, B), fdt)], axis=1)
-    logw0 = jnp.zeros((CB, s, B), fdt)
-    ll0 = jnp.zeros((CB, 1, B), fdt)
-    V, logw, ll = jax.lax.fori_loop(0, W, step, (V0, logw0, ll0))
+    V0 = tuple([x0_ref[c, d, :] for d in range(D)]
+               + [jnp.zeros((N,), fdt)] * H)
+    write_carry(V0)
+    V, logw, ll = jax.lax.fori_loop(
+        0, W, step, (V0, jnp.zeros((N,), fdt), jnp.zeros((), fdt)))
 
     # ---- weight-averaged final statistic (`buffered_smoother.py:151-154`)
-    # + the deferred loglik increment of the LAST step (same reduces)
-    m = _max2(logw)
-    mf = jnp.where(jnp.isfinite(m), m, 0.0)
-    w = jnp.exp(logw - mf)
-    tot = jnp.sum(jnp.sum(w, axis=1, keepdims=True), axis=2, keepdims=True)
+    # + the deferred loglik increment of the last step
+    mf, w, tot = _normalize(logw)
     ok = tot > 0
-    w_last = aux_ref[:, pl.ds(2 * W - 1, 1), :]           # [CB,1,B]
-    ll_inc = mf + jnp.log(jnp.where(ok, tot, 1.0)) - jnp.log(float(N))
-    ll = ll + w_last * jnp.where(ok, ll_inc, -jnp.inf)
-    probs = jnp.where(ok, w / jnp.where(ok, tot, 1.0), 1.0 / (s * B))
-    cols = [_sum2(V[:, (D + h) * s:(D + h + 1) * s] * probs)
-            for h in range(H)]                            # H x [CB,1,1]
-    cols.append(jnp.max(ll, axis=2, keepdims=True))       # loglik
-    out_ref[:] = jnp.concatenate(cols, axis=2)            # [CB,1,H+1]
+    w_last = aux_ref[c, 1, W - 1]
+    inc = mf + jnp.log(jnp.where(ok, tot, 1.0)) - log_n
+    ll = ll + jnp.where(w_last != 0, w_last * jnp.where(ok, inc, -jnp.inf),
+                        0.0)
+    probs = jnp.where(ok, w / jnp.where(ok, tot, 1.0), 1.0 / N)
+    cols = [jnp.sum(V[D + h] * probs) for h in range(H)] + [ll]
+    NO = out_ref.shape[1]
+    slot = jax.lax.broadcasted_iota(jnp.int32, (NO,), 0)
+    row = jnp.zeros((NO,), fdt)
+    for i, v in enumerate(cols):
+        row = jnp.where(slot == i, v, row)
+    out_ref[c, :] = row
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "model", "lambduh", "chain_block", "interpret", "ess_threshold",
-    "kernel_rng", "qp_merge", "hi_only", "valid_gate", "pipeline",
-    "interleave"))
+    "model", "lambduh", "interpret", "ess_threshold", "valid_gate"))
 def fused_window_batched(model: FusedModel,
                          pvec: jax.Array,      # [C, P]
-                         x0: jax.Array,        # [C, D*s, B]
-                         normals: jax.Array,   # [C, W, Z*s, B], or (with
-                                               # kernel_rng) [C] int32 seeds
+                         x0: jax.Array,        # [C, D, N]
+                         normals: jax.Array,   # [C, W, Z, N]
                          ys: jax.Array,        # [C, W]
                          weights: jax.Array,   # [C, W]
                          xi: jax.Array,        # [C, W]
                          lambduh: float = 1.0,
-                         chain_block: int = 8,
                          interpret: bool = False,
                          ess_threshold: float | None = None,
-                         kernel_rng: bool = False,
-                         qp_merge: int = 1,
-                         hi_only: bool = False,
                          vs: jax.Array | None = None,   # [C, W] validity
-                         valid_gate: bool = False,
-                         pipeline: bool = False,
-                         interleave: bool = False):
-    """Run the fused window for a batch of chains.
+                         valid_gate: bool = False):
+    """Run the fused window for a batch of chains, one program per chain.
 
     Returns (mean_statistic [C, H], loglikelihood [C]).
     """
     C, W = ys.shape
-    s = TWO_LEVEL_S
-    B = x0.shape[-1]
+    N = x0.shape[-1]
+    if not supports_particles(N):
+        raise ValueError(f"fused window kernel needs a power-of-two particle "
+                         f"count >= 16, got {N}")
     D, H = model.n_state, model.n_stat
-    Z = model.noise_dims
-    CB = chain_block
-    while C % CB != 0:
-        CB //= 2
     fdt = jnp.float32
-
-    aux_rows = [ys, weights, xi]
-    if valid_gate:
-        aux_rows.append(jnp.ones_like(ys) if vs is None else vs)
-    n_aux = len(aux_rows) * W
-    aux = jnp.broadcast_to(
-        jnp.concatenate(aux_rows, axis=1).astype(fdt)[:, :, None],
-        (C, n_aux, B))                   # [C, 3W|4W, B] lane-replicated
-    pvec_b = jnp.broadcast_to(pvec.astype(fdt)[:, :, None],
-                              (C, pvec.shape[-1], B))
-    if kernel_rng:
-        normals_spec = pl.BlockSpec((CB, 1), lambda i: (i, 0),
-                                    memory_space=pltpu.SMEM)
-        normals_arg = normals.reshape(C, 1).astype(jnp.int32)
-    else:
-        normals_spec = pl.BlockSpec((CB, W, Z * s, B),
-                                    lambda i: (i, 0, 0, 0),
-                                    memory_space=pltpu.VMEM)
-        normals_arg = normals.astype(fdt)
-    out = pl.pallas_call(
-        functools.partial(_fused_window_kernel, model, W, s, B, lambduh,
-                          ess_threshold, kernel_rng, qp_merge, hi_only,
-                          valid_gate, pipeline, interleave),
-        grid=(C // CB,),
-        in_specs=[
-            pl.BlockSpec((CB, pvec.shape[-1], B), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((CB, D * s, B), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            normals_spec,
-            pl.BlockSpec((CB, n_aux, B), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((CB, 1, H + 1), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((C, 1, H + 1), fdt),
+    if vs is None:
+        vs = jnp.ones_like(ys)
+    aux = jnp.stack([ys, weights, xi, vs], axis=1).astype(fdt)   # [C, 4, W]
+    NO = _next_pow2(H + 1)
+    out, _ = pl.pallas_call(
+        functools.partial(_window_kernel, model, W, N, float(lambduh),
+                          ess_threshold, valid_gate, interpret),
+        grid=(C,),
+        out_shape=[jax.ShapeDtypeStruct((C, NO), fdt),
+                   jax.ShapeDtypeStruct((C, D + H + 1, N), fdt)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=_num_warps(N), num_stages=1),
         interpret=interpret,
-    )(pvec_b, x0.astype(fdt), normals_arg, aux)
-    return out[:, 0, :H], out[:, 0, H]
-
-
-def _pick_fused_chain_block(C: int, W: int, D: int, H: int, B: int,
-                            kernel_rng: bool = False, Z: int | None = None
-                            ) -> int:
-    """Largest power-of-two chain block whose VMEM footprint fits.
-
-    Per-chain bytes ~ normals [W, Z*s, B] (absent with in-kernel RNG) +
-    aux [3W, B] + the step working set (~6 arrays of [(2K+3)s, B]).  The
-    12 MB budget admits CB=16 at the flagship SVM config (measured 9%
-    faster than CB=8; CB=32 fails to compile) and drops GARCH-sized
-    states to CB=8.  In-kernel RNG removes the normals stream, which
-    admits CB=32 at the flagship config (measured +3.4% over CB=16;
-    CB=64 exceeds VMEM)."""
-    s = TWO_LEVEL_S
-    K = D + H
-    if Z is None:
-        Z = D
-    normals_term = 0 if kernel_rng else W * Z * s
-    cap = 32 if kernel_rng else 16
-    per_chain = 4 * B * (normals_term + 3 * W + 6 * (2 * K + 3) * s)
-    cb = 1
-    while (cb * 2 <= min(cap, C) and C % (cb * 2) == 0
-           and (cb * 2) * per_chain <= 12 * 1024 * 1024):
-        cb *= 2
-    return cb
+        name="fused_pf_window",
+    )(pvec.astype(fdt), x0.astype(fdt), normals.astype(fdt), aux)
+    return out[:, :H], out[:, H]
 
 
 def _bc(x, batched, n):
@@ -484,27 +268,16 @@ def _bc(x, batched, n):
 
 @functools.lru_cache(maxsize=None)
 def _fused_callable(model: FusedModel, lambduh: float, interpret: bool,
-                    ess_threshold: float | None = None,
-                    kernel_rng: bool = False, qp_merge: int = 1,
-                    hi_only: bool = False, valid_gate: bool = False,
-                    pipeline: bool = False, interleave: bool = False):
+                    ess_threshold: float | None, valid_gate: bool):
     """Single-chain fused call whose vmap collapses into real chain
     batches (nested vmaps flatten)."""
+    kw = dict(lambduh=lambduh, interpret=interpret,
+              ess_threshold=ess_threshold, valid_gate=valid_gate)
 
     @jax.custom_batching.custom_vmap
     def flat(pvec, x0, normals, ys, weights, xi, vs):
-        C, W = ys.shape
-        B = x0.shape[-1]
-        cb = _pick_fused_chain_block(C, W, model.n_state, model.n_stat, B,
-                                     kernel_rng, model.noise_dims)
         return fused_window_batched(model, pvec, x0, normals, ys, weights,
-                                    xi, lambduh=lambduh, chain_block=cb,
-                                    interpret=interpret,
-                                    ess_threshold=ess_threshold,
-                                    kernel_rng=kernel_rng,
-                                    qp_merge=qp_merge, hi_only=hi_only,
-                                    vs=vs, valid_gate=valid_gate,
-                                    pipeline=pipeline, interleave=interleave)
+                                    xi, vs=vs, **kw)
 
     @flat.def_vmap
     def flat_vmap(axis_size, in_batched, *args):
@@ -516,13 +289,8 @@ def _fused_callable(model: FusedModel, lambduh: float, interpret: bool,
 
     @jax.custom_batching.custom_vmap
     def single(pvec, x0, normals, ys, weights, xi, vs):
-        ms, ll = fused_window_batched(
-            model, pvec[None], x0[None], normals[None], ys[None],
-            weights[None], xi[None], lambduh=lambduh, chain_block=1,
-            interpret=interpret, ess_threshold=ess_threshold,
-            kernel_rng=kernel_rng, qp_merge=qp_merge, hi_only=hi_only,
-            vs=vs[None], valid_gate=valid_gate, pipeline=pipeline,
-            interleave=interleave)
+        ms, ll = flat(pvec[None], x0[None], normals[None], ys[None],
+                      weights[None], xi[None], vs[None])
         return ms[0], ll[0]
 
     @single.def_vmap
@@ -536,35 +304,15 @@ def _fused_callable(model: FusedModel, lambduh: float, interpret: bool,
 def fused_pf_score(model: FusedModel, key, params, window, step_weights,
                    n_particles: int, prior_mean, prior_var,
                    lambduh: float = 1.0, interpret: bool = False,
-                   ess_threshold: float | None = None,
-                   rng: str = "host", qp_merge: int = 1,
-                   gather: str = "exact", step_valid=None,
-                   pipeline: bool = False, interleave: bool = False):
+                   ess_threshold: float | None = None, step_valid=None):
     """Single-chain fused buffered-PF score: (mean_stat [H], loglik).
 
     Draws x0, per-step proposal normals, and systematic offsets from
     ``key``, then runs the fused kernel; under vmap, chains collapse into
-    chain-blocked kernel batches.
-
-    ``gather='bf16'`` drops the bf16-lo value rows from the one-hot gather
-    dot (R: 2Ks+3s -> Ks+3s, -36%% MXU work at K=4): gathered carries
-    round to bf16 each step.  Lossy — see BENCH_NOTES for the measured
-    speed/accuracy trade; default 'exact' reconstructs f32 bitwise.
-
-    ``rng='kernel'`` generates the proposal normals *inside* the kernel
-    (hardware PRNG + Box-Muller) instead of streaming a [W, D*s, B] array
-    per chain from HBM — statistically equivalent iid normals, but draws
-    depend on the chain-block layout rather than only on ``key`` (x0 and
-    the systematic offsets stay key-deterministic).
-
-    ``pipeline=True`` issues qp group i+1's B1 build + MXU gather dot
-    before group i's VPU tail (bitwise-identical reordering).  Measured
-    +0.04% at the flagship config — a no-op on this Mosaic; kept as a
-    research option (BENCH_NOTES).
+    one kernel batch.  ``interpret`` runs the Pallas interpreter (tests
+    on the CPU); user paths get it from `ops.dispatch`.
     """
-    s = TWO_LEVEL_S
-    assert n_particles % s == 0, "fused path needs N divisible by 8"
-    B = n_particles // s
+    N = n_particles
     W = window.shape[0]
     D = model.n_state
     Z = model.noise_dims
@@ -572,30 +320,19 @@ def fused_pf_score(model: FusedModel, key, params, window, step_weights,
     prior_mean = jnp.asarray(prior_mean, jnp.float32).reshape(-1)[0]
     prior_var = jnp.asarray(prior_var, jnp.float32).reshape(-1)[0]
     k0, kz, kxi = jax.random.split(key, 3)
-    z0 = jax.random.normal(k0, (Z * s, B), jnp.float32)
+    z0 = jax.random.normal(k0, (Z, N), jnp.float32)
     if model.init is None:
-        x0 = prior_mean + jnp.sqrt(prior_var) * z0[:D * s]
+        x0 = prior_mean + jnp.sqrt(prior_var) * z0[:D]
     else:
-        x0_list = model.init([z0[d * s:(d + 1) * s] for d in range(Z)],
-                             prior_mean, prior_var)
-        x0 = jnp.concatenate(x0_list, axis=0)
-    # interpret mode (CPU tests) has no prng_seed lowering — the host path
-    # is the statistically identical fallback
-    kernel_rng = rng == "kernel" and not interpret
-    if kernel_rng:
-        normals = jax.random.bits(kz, (), jnp.uint32).astype(jnp.int32)
-    else:
-        normals = jax.random.normal(kz, (W, Z * s, B), jnp.float32)
+        x0 = jnp.stack(model.init(list(z0), prior_mean, prior_var))
+    normals = jax.random.normal(kz, (W, Z, N), jnp.float32)
     xi = jax.random.uniform(kxi, (W,), jnp.float32)
-    pvec = model.pack_params(params).astype(jnp.float32)
+    pvec = model.pack_params(params).astype(jnp.float32).reshape(-1)
     ys = window.reshape(W).astype(jnp.float32)
-    valid_gate = step_valid is not None
     vs = (jnp.ones((W,), jnp.float32) if step_valid is None
           else step_valid.astype(jnp.float32))
     fn = _fused_callable(model, float(lambduh), bool(interpret),
                          None if ess_threshold is None
-                         else float(ess_threshold), kernel_rng,
-                         int(qp_merge), gather == "bf16", valid_gate,
-                         bool(pipeline), bool(interleave))
+                         else float(ess_threshold), step_valid is not None)
     return fn(pvec, x0, normals, ys, step_weights.astype(jnp.float32), xi,
               vs)

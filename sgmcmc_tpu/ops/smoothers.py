@@ -1,18 +1,18 @@
 """Particle filter / smoother step functions as `lax.scan` bodies.
 
-TPU-first redesigns of the five smoother steps in
+Vectorized redesigns of the five smoother steps in
 `/root/reference/sgmcmc_ssm/particle_filters/pf.py`:
 
 * ``filter``        — `pf_filter` (`pf.py:40-82`): filtering accumulator.
 * ``nemeth``        — `nemeth_smoother` (`pf.py:138-181`): O(N) shrinkage.
 * ``poyiadjis_n``   — Nemeth with lambda=1 (`buffered_smoother.py:175-180`).
 * ``poyiadjis_n2``  — `poyiadjis_smoother` (`pf.py:84-136`): the O(N^2)
-  backward-weight contraction, expressed as an MXU matmul
+  backward-weight contraction, expressed as a dense matmul
   ``new_stats = BW @ stats + einsum(BW, H_pairs)``.
 * ``paris``         — `paris_smoother` (`pf.py:183-258`): backward sampling
   from the exact N x N backward weights via per-row categorical draws
   (statistically identical to the reference's accept-reject construction,
-  whose only purpose is CPU-side O(N*K) cost; on TPU the dense row weights
+  whose only purpose is CPU-side O(N*K) cost; on an accelerator the dense row weights
   are a single fused matmul/softmax).
 
 Each step maps ``(particles, log_weights, statistics) -> same`` plus a running
@@ -30,8 +30,7 @@ import jax
 import jax.numpy as jnp
 
 from ..models.base import ParticleKernel, StatisticFn
-from .pallas.resample import resample_apply
-from .resampling import get_resampler, normalize_log_weights
+from .resampling import get_resampler, normalize_log_weights, resample_apply
 
 
 class PFCarry(NamedTuple):
@@ -96,24 +95,24 @@ def _propagate(kernel: ParticleKernel, resampler, params, key, particles,
     return parents, new_particles, new_log_weights, ancestors
 
 
-def _propagate_apply(kernel: ParticleKernel, scheme: str, mode: str, params,
+def _propagate_apply(kernel: ParticleKernel, scheme: str, params,
                      key, particles, log_weights, extra_vals, y,
                      ess_threshold: float | None = None):
-    """Bootstrap PF step with fused resample-apply (TPU fast path).
+    """Bootstrap PF step with joint resample-apply.
 
     Resamples ``particles`` (and optionally per-particle ``extra_vals``,
-    e.g. running smoother statistics) in one one-hot-matmul application —
-    see `ops/pallas/resample.py`.  Returns (parents, new_particles,
-    new_log_weights, resampled_extra_vals).  ``ess_threshold`` selects the
-    un-resampled values instead (the matmul still runs — on TPU the gate is
-    a statistical option, not a speed one).
+    e.g. running smoother statistics) in one gather of the joint value
+    matrix — see `resampling.resample_apply`.  Returns (parents,
+    new_particles, new_log_weights, resampled_extra_vals).
+    ``ess_threshold`` selects the un-resampled values instead (the gather
+    still runs: the gate is a statistical option, not a speed one).
     """
     key_res, key_prop = jax.random.split(key)
     if extra_vals is None:
         V = particles
     else:
         V = jnp.concatenate([particles, extra_vals], axis=-1)
-    Vr = resample_apply(key_res, log_weights, V, scheme, mode)
+    Vr = resample_apply(key_res, log_weights, V, scheme)
     do_res, carried = _ess_gate(log_weights, ess_threshold)
     if do_res is not None:
         Vr = jnp.where(do_res, Vr, V)
@@ -157,7 +156,7 @@ def make_filter_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                 carry.log_weights, inp.y, ess_threshold)
         else:
             parents, particles, log_w, _ = _propagate_apply(
-                kernel, resampler_name, resample_mode, params, inp.key,
+                kernel, resampler_name, params, inp.key,
                 carry.particles, carry.log_weights, None, inp.y, ess_threshold)
         h = stat_fn(params, parents, particles, inp.y, inp.t)  # [N, H]
         scale = inp.weight * inp.in_window
@@ -199,7 +198,7 @@ def make_nemeth_step(kernel: ParticleKernel, stat_fn: StatisticFn,
             stats_anc = jnp.take(carry.statistics, ancestors, axis=0)
         else:
             parents, particles, log_w, stats_anc = _propagate_apply(
-                kernel, resampler_name, resample_mode, params, inp.key,
+                kernel, resampler_name, params, inp.key,
                 carry.particles, carry.log_weights, carry.statistics, inp.y, ess_threshold)
         h = stat_fn(params, parents, particles, inp.y, inp.t)   # [N, H]
         scale = inp.weight * inp.in_window
@@ -231,7 +230,7 @@ def _backward_log_weights(kernel: ParticleKernel, params, particles,
 
 # Auto-chunk policy: above this N, bw_chunk=None streams the [N, N]
 # backward weights in blocks of the largest divisor of N at most
-# _BW_AUTO_CHUNK rows (speed-neutral — measured in BENCH_NOTES — and keeps
+# _BW_AUTO_CHUNK rows (chunking changes only the GEMM tiling, and keeps
 # the per-step live memory at O(chunk * N) instead of O(N^2)).
 _BW_AUTO_DENSE_MAX_N = 8192
 _BW_AUTO_CHUNK = 4096
@@ -262,7 +261,7 @@ def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
     """Poyiadjis et al. (2011) O(N^2) smoother step (`pf.py:84-136`).
 
     new_stats[i] = sum_j BW[i,j] * (stats[j] + h(x_j, x'_i)); the stats term
-    is a dense [N,N]@[N,H] matmul on the MXU, the pairwise-h term a
+    is a dense [N,N]@[N,H] matmul, the pairwise-h term a
     contraction over a vmapped [N,N,H] statistic tensor.
 
     ``bw_chunk`` streams the contraction in row blocks of that size via
@@ -280,7 +279,7 @@ def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                 carry.log_weights, inp.y, ess_threshold)
         else:
             parents, particles, log_w, _ = _propagate_apply(
-                kernel, resampler_name, resample_mode, params, inp.key,
+                kernel, resampler_name, params, inp.key,
                 carry.particles, carry.log_weights, None, inp.y, ess_threshold)
         scale = inp.weight * inp.in_window
         n = particles.shape[0]
@@ -292,7 +291,7 @@ def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                                            carry.log_weights, x_next_c)
             bw = jax.nn.softmax(log_bw, axis=-1)              # [C, N]
 
-            # sum_j bw[i,j] * stats[j]  -> MXU matmul
+            # sum_j bw[i,j] * stats[j]  -> dense matmul
             smoothed = bw @ carry.statistics                  # [C, H]
 
             # sum_j bw[i,j] * h(x_j, x'_i)
@@ -346,7 +345,7 @@ def make_paris_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                 carry.log_weights, inp.y, ess_threshold)
         else:
             parents, particles, log_w, _ = _propagate_apply(
-                kernel, resampler_name, resample_mode, params, key_prop,
+                kernel, resampler_name, params, key_prop,
                 carry.particles, carry.log_weights, None, inp.y, ess_threshold)
         n = particles.shape[0]
         n_chunks = _bw_row_chunks(bw_chunk, n)
@@ -488,7 +487,7 @@ def make_paris_ar_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                 carry.log_weights, inp.y, ess_threshold)
         else:
             parents, particles, log_w, _ = _propagate_apply(
-                kernel, resampler_name, resample_mode, params, key_prop,
+                kernel, resampler_name, params, key_prop,
                 carry.particles, carry.log_weights, None, inp.y, ess_threshold)
         J = accept_reject_backward_indices(
             key_bs, kernel, params, carry.particles, carry.log_weights,

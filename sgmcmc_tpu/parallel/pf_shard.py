@@ -2,9 +2,10 @@
 
 Shards a single particle filter's N particles across the ``particle`` mesh
 axis.  Each device owns N/P particles; per step the (small) filter state —
-log-weights, particles, per-particle statistics — is `all_gather`'d over ICI
-so every device resamples its local slice from the *global* ancestor
-distribution and computes its local slice of the new state.  For the
+log-weights, particles, per-particle statistics — is `all_gather`'d over
+the device links so every device resamples its local slice from the
+*global* ancestor distribution and computes its local slice of the new
+state.  For the
 Poyiadjis O(N^2) smoother this is the natural row decomposition of the
 backward-weight matmul: each device computes its [N/P, N] block.
 
@@ -79,7 +80,7 @@ def make_sharded_smoother_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                                lambduh: float = 0.95, n_tilde: int = 2,
                                ess_threshold: float | None = None,
                                bw_chunk: int | None = None):
-    """Smoother step over local particle shards with ICI collectives.
+    """Smoother step over local particle shards with cross-device collectives.
 
     Carry arrays are the local shards: particles [N_loc, D], log_weights
     [N_loc], statistics [N_loc, H].

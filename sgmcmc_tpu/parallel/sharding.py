@@ -10,8 +10,9 @@ are first-class mesh dimensions (SURVEY.md §2.4):
   particles sharded across devices, with `all_gather`/`psum` collectives for
   resampling and log-normalization (see `pf_shard.py`).
 
-Multi-host runs extend the same mesh over DCN via `jax.distributed`; chain
-parallelism rides DCN (no communication), particle collectives stay on ICI.
+Multi-host runs extend the same mesh across hosts via `jax.distributed`;
+chain parallelism needs no communication, so the chain axis spans hosts and
+particle collectives stay within a host's NVLink-joined GPUs.
 """
 from __future__ import annotations
 
@@ -27,12 +28,12 @@ def initialize_multi_host(coordinator_address: str | None = None,
     mesh.
 
     Thin wrapper over `jax.distributed.initialize` (SURVEY.md §2.4: the
-    chain axis spans hosts over DCN with zero communication, so the
-    default global mesh puts every chip on the chain axis).  On TPU pods
-    all arguments are auto-detected from the environment; pass them
-    explicitly elsewhere.  Call once per process before any jax
-    computation; then build custom meshes with `make_mesh` if particle
-    sharding is wanted.
+    chain axis spans hosts with zero communication, so the default global
+    mesh puts every device on the chain axis).  Pass the arguments
+    explicitly (``coordinator_address="localhost:<port>"`` for processes of
+    one host): nothing auto-detects a GPU cluster.  Call once per process
+    before any jax computation; then build custom meshes with `make_mesh`
+    if particle sharding is wanted.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

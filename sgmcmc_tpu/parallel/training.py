@@ -3,11 +3,14 @@
 Composes the two parallel axes (SURVEY.md §2.4): many independent chains
 sharded over the ``chain`` mesh axis (pure data parallelism, no cross-chain
 communication) and each chain's particle filter sharded over the
-``particle`` axis (ICI collectives inside `pf_shard`).  The whole update —
-subsequence sampling, buffered PF score, prior gradient, Langevin noise,
-projection — is one `shard_map`-wrapped function that jits once.
+``particle`` axis (cross-device collectives inside `pf_shard`).  The
+whole update — subsequence sampling, buffered PF score, prior gradient,
+Langevin noise, projection — is one `shard_map`-wrapped function that
+jits once.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -17,8 +20,10 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..inference.sgmcmc import (PFScoreConfig, _fused_eligible,
                                 tree_random_normal)
 from ..models.base import ParticleKernel, StatisticFn
-from ..ops.subsequence import sample_buffered_window, window_length
 from ..ops.buffered import window_weights
+from ..ops.dispatch import pf_path
+from ..ops.pallas.fused_pf import fused_pf_score
+from ..ops.subsequence import sample_buffered_window, window_length
 from .pf_shard import run_buffered_pf_sharded
 
 
@@ -38,13 +43,13 @@ def make_distributed_sgld_step(
     window kernel *per shard* as an island particle filter — each device
     runs an independent N/P-particle filter (its own resampling) and the
     per-island Fisher-identity scores / loglikelihoods are psum-averaged.
-    This keeps the fused kernel's VMEM-resident window under particle
-    sharding (the 2.8x lever) at a statistical trade: the island estimator
-    averages P independent N/P-particle scores instead of one N-particle
-    score, so per-island smoother bias corresponds to the smaller island
-    size (Vergé et al. 2015 island PF).  Exact global resampling per step
-    is fundamentally incompatible with whole-window kernel fusion —
-    collectives cannot run inside a Pallas call.
+    This keeps the whole window inside one kernel under particle sharding
+    at a statistical trade: the island estimator averages P independent
+    N/P-particle scores instead of one N-particle score, so per-island
+    smoother bias corresponds to the smaller island size (Vergé et al.
+    2015 island PF).  Exact global resampling per step is incompatible
+    with whole-window kernel fusion — collectives cannot run inside a
+    Pallas call.
     """
     n_particle_shards = mesh.shape["particle"]
     if config.n_particles % n_particle_shards:
@@ -52,10 +57,23 @@ def make_distributed_sgld_step(
     n_local = config.n_particles // n_particle_shards
     # the fused window kernel applies when the particle axis is unsharded,
     # or per-shard in island mode
-    fused_ok = _fused_eligible(config, fused_model)
-    use_fused = n_particle_shards == 1 and fused_ok
-    use_island = (island_fused and n_particle_shards > 1 and fused_ok
-                  and n_local % 8 == 0)
+    if n_particle_shards == 1:
+        path = pf_path(config.resample_mode,
+                       _fused_eligible(config, fused_model))
+    elif island_fused:
+        island_cfg = dataclasses.replace(config, n_particles=n_local)
+        path = pf_path(config.resample_mode,
+                       _fused_eligible(island_cfg, fused_model))
+        if not path.fused:
+            raise ValueError(
+                "island_fused needs the fused window kernel: resample_mode "
+                "'fused' or 'auto' on a platform that has it, and an "
+                "eligible configuration with a power-of-two island size "
+                f">= 16 (got {n_local} particles per device)")
+    else:
+        path = pf_path(config.resample_mode, False)
+    use_fused = path.fused and n_particle_shards == 1
+    use_island = path.fused and n_particle_shards > 1
     # ``warn_small_islands=False`` silences the bias warning for
     # deliberately-tiny shapes (dryruns / unit tests on toy configs)
     if use_island and n_local < 256 and warn_small_islands:
@@ -72,8 +90,6 @@ def make_distributed_sgld_step(
             f"per device, or disable island_fused for the "
             f"unbiased-at-full-N global-resampling estimator.",
             stacklevel=2)
-    fused_interpret = (use_fused or use_island) and \
-        jax.default_backend() != "tpu"
     S = config.subsequence_length
     full = (S == -1) or (S >= T)
     W = T if full else window_length(S, config.buffer_length, T)
@@ -101,14 +117,10 @@ def make_distributed_sgld_step(
             else:
                 pm, pv = prior_mean_var_fn(params)
             if use_fused or use_island:
-                from ..ops.pallas.fused_pf import fused_pf_score
                 lam = 1.0 if config.smoother == "poyiadjis_N" \
                     else config.lambduh
-                fused_kw = dict(
-                    lambduh=lam, interpret=fused_interpret,
-                    ess_threshold=config.ess_threshold, rng=config.rng,
-                    qp_merge=config.qp_merge, pipeline=config.pipeline,
-                    interleave=config.interleave)
+                fused_kw = dict(lambduh=lam, interpret=path.interpret,
+                                ess_threshold=config.ess_threshold)
                 if use_fused:
                     return fused_pf_score(
                         fused_model, kp, params, window, step_w,

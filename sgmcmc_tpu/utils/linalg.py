@@ -1,4 +1,4 @@
-"""Numeric linear-algebra utilities (TPU-first JAX rewrites).
+"""Numeric linear-algebra utilities (accelerator-first JAX rewrites).
 
 Functional equivalents of the reference's LAPACK-backed helpers
 (`/root/reference/sgmcmc_ssm/_utils.py:88-183`), reimplemented on top of
@@ -54,7 +54,7 @@ def sym(mat: jax.Array) -> jax.Array:
 def pos_def_mat_inv(mat: jax.Array) -> jax.Array:
     """Inverse of a positive-definite matrix via Cholesky.
 
-    TPU replacement for the reference's dpotrf/dpotri path
+    Batched replacement for the reference's dpotrf/dpotri path
     (`_utils.py:88-107`).
     """
     L = jnp.linalg.cholesky(mat)
@@ -79,11 +79,12 @@ def lower_tri_mat_inv(L: jax.Array) -> jax.Array:
 def spectral_norm_projection(A: jax.Array, threshold: float = 0.9999) -> jax.Array:
     """Project a square matrix to spectral norm <= threshold.
 
-    TPU-native replacement for the reference's VAR(p) stability projection
+    Accelerator replacement for the reference's VAR(p) stability projection
     (`_utils.py:149-172`), which clips *eigenvalues* of the companion matrix.
-    Non-symmetric eigendecomposition does not lower to TPU, so we instead
-    shrink by the largest singular value: since rho(A) <= sigma_max(A),
-    sigma_max <= threshold implies the spectral radius is below threshold
+    Non-symmetric eigendecomposition has no accelerator lowering in XLA, so
+    we instead shrink by the largest singular value: since
+    rho(A) <= sigma_max(A), sigma_max <= threshold implies the spectral
+    radius is below threshold
     (a slightly stronger projection; identical for scalars and symmetric A).
     """
     if A.shape[-1] == 1:

@@ -3,7 +3,9 @@
 The fused path consumes randomness as (x0 normals, per-step proposal
 normals, per-step systematic offsets).  Reconstructing exactly the draws
 the unfused gather path makes lets us compare trajectories deterministically
-(selections are exact; resampled values carry the bf16 hi/lo ~1e-5 error).
+at small N (same selections; values differ only by f32 summation order).
+The kernel runs in the Pallas interpreter here; `test_gpu.py` runs it
+compiled on the card.
 """
 import jax
 import jax.numpy as jnp
@@ -13,17 +15,13 @@ import pytest
 from sgmcmc_tpu.models import svm
 from sgmcmc_tpu.ops import buffered
 from sgmcmc_tpu.ops.pallas.fused_pf import (fused_pf_score,
-                                            fused_window_batched)
+                                            fused_window_batched,
+                                            supports_particles)
 
 
-def _gather_path_draws(key, params, N, W, prior_mean, prior_var):
-    """Replicate run_buffered_pf's PRNG consumption, folded layout."""
-    s = 8
-    B = N // s
-
-    def fold(flat):                      # [N] -> [s, B], j = s*p + q
-        return flat.reshape(B, s).T
-
+def _gather_path_draws(key, N, W, prior_mean, prior_var):
+    """Replicate run_buffered_pf's PRNG consumption in the kernel layout:
+    x0 [1, D=1, N], normals [1, W, Z=1, N], offsets [1, W]."""
     key_init, key_steps = jax.random.split(key)
     z0 = jax.random.normal(key_init, (N, 1), jnp.float32)
     x0 = prior_mean + jnp.sqrt(prior_var) * z0
@@ -32,8 +30,8 @@ def _gather_path_draws(key, params, N, W, prior_mean, prior_var):
     for t in range(W):
         kr, kp = jax.random.split(step_keys[t])
         xis.append(jax.random.uniform(kr, (), jnp.float32))
-        zs.append(fold(jax.random.normal(kp, (N, 1), jnp.float32)[:, 0]))
-    return (fold(x0[:, 0])[None], jnp.stack(zs)[None, :, :, :],
+        zs.append(jax.random.normal(kp, (N, 1), jnp.float32)[:, 0])
+    return (x0[:, 0][None, None], jnp.stack(zs)[None, :, None, :],
             jnp.stack(xis)[None])
 
 
@@ -52,12 +50,12 @@ def test_fused_matches_gather_deterministically(seed):
         resampler="systematic", resample_mode="gather",
         prior_mean=0.0, prior_var=pv)
 
-    x0, normals, xi = _gather_path_draws(key, params, N, T, 0.0, pv)
-    pvec = svm._fused_pack(params).astype(jnp.float32)[None]
+    x0, normals, xi = _gather_path_draws(key, N, T, 0.0, pv)
+    pvec = svm._fused_pack(params).astype(jnp.float32).reshape(1, -1)
     w = jnp.ones((1, T), jnp.float32)
     ms, ll = fused_window_batched(
         svm.FUSED, pvec, x0, normals, ys[None, :, 0], w, xi,
-        chain_block=1, interpret=True)
+        interpret=True)
     np.testing.assert_allclose(np.asarray(ms[0]),
                                np.asarray(ref.mean_statistic),
                                rtol=2e-3, atol=2e-3)
@@ -168,7 +166,7 @@ def test_lgssm_fused_matches_exact_kalman_gradient(kernel_name):
     assert np.all(np.abs(z) < 5), (f.mean(0), exact_vec, se, z)
 
 
-def test_fused_score_fn_integration():
+def test_fused_score_fn_integration(interpret_kernels):
     """make_pf_score_fn(resample_mode='fused') drives an SGLD chain."""
     from sgmcmc_tpu.inference import sgmcmc
     T = 60
@@ -189,59 +187,71 @@ def test_fused_score_fn_integration():
         assert np.all(np.isfinite(np.asarray(leaf)))
 
 
-def test_sampler_api_reaches_fused_kernel_options():
-    """qp_merge / pipeline / rng flow from the high-level Sampler API into
-    the fused kernel (PFScoreConfig plumbing), and pipelining is a pure
-    reordering: bitwise-identical gradients at the same key."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
+def test_sampler_api_reaches_fused_kernel(interpret_kernels, monkeypatch):
+    """The high-level Sampler API reaches the window kernel through the
+    dispatch ('auto' on a platform with the kernel), forwarding the
+    config's smoother lambda and ESS threshold."""
+    from sgmcmc_tpu.inference import sgmcmc
     from sgmcmc_tpu.inference.samplers import SVMSampler
-    from sgmcmc_tpu.models import svm
 
+    captured = {}
+    orig = sgmcmc.fused_pf_score
+
+    def spy(*args, **kw):
+        captured.update(kw)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(sgmcmc, "fused_pf_score", spy)
     true = svm.from_scalars(A=0.9, Q=0.5, R=1.0, dtype=jnp.float64)
     ys, _ = svm.generate_data(jax.random.PRNGKey(0), true, 64)
-    kw = dict(N=32, subsequence_length=8, buffer_length=2,
-              resampler="systematic", resample_mode="fused")
-
-    def grad_with(**opts):
-        s = SVMSampler(observations=ys, parameters=true, seed=9)
-        return s.noisy_gradient(**kw, **opts)
-
-    base = grad_with()
-    piped = grad_with(pipeline=True)
-    merged = grad_with(qp_merge=2, pipeline=True)
-    for a, b in zip(jax.tree_util.tree_leaves(base),
-                    jax.tree_util.tree_leaves(piped)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    for leaf in jax.tree_util.tree_leaves(merged):
+    s = SVMSampler(observations=ys, parameters=true, seed=9)
+    grad = s.noisy_gradient(N=32, subsequence_length=8, buffer_length=2,
+                            pf="nemeth", lambduh=0.9, ess_threshold=0.5,
+                            resampler="systematic", resample_mode="auto")
+    assert captured["lambduh"] == 0.9 and captured["ess_threshold"] == 0.5
+    assert captured["interpret"] is True
+    for leaf in jax.tree_util.tree_leaves(grad):
         assert np.all(np.isfinite(np.asarray(leaf)))
 
 
-def test_fused_interleave_bitwise_identical():
-    """Two-chain-block interleave (r5 perf probe, PFScoreConfig
-    plumbing): a pure schedule reordering — bitwise-identical stat/ll
-    on a vmapped chain batch (interpret mode exercises CB >= 2)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from sgmcmc_tpu.models import svm
-    from sgmcmc_tpu.ops.pallas.fused_pf import fused_pf_score
-
-    true = svm.from_scalars(A=0.9, Q=0.5, R=1.0)
+@pytest.mark.parametrize("option", ["rng", "qp_merge", "pipeline",
+                                    "interleave", "gather"])
+def test_sampler_rejects_removed_kernel_options(option):
+    """Options of the removed earlier kernel raise instead of being ignored."""
+    from sgmcmc_tpu.inference.samplers import SVMSampler
+    true = svm.from_scalars(A=0.9, Q=0.5, R=1.0, dtype=jnp.float64)
     ys, _ = svm.generate_data(jax.random.PRNGKey(0), true, 32)
-    window = jnp.asarray(ys[:16], jnp.float32).reshape(16)
-    sw = jnp.ones((16,), jnp.float32)
-    pm, pv = 0.0, float(svm.stationary_variance(true))
-    keys = jax.random.split(jax.random.PRNGKey(2), 4)
+    s = SVMSampler(observations=ys, parameters=true, seed=9)
+    with pytest.raises(ValueError, match="removed"):
+        s.noisy_gradient(N=32, subsequence_length=8, buffer_length=2,
+                         **{option: 1})
 
-    def run(il):
-        f = jax.vmap(lambda k: fused_pf_score(
-            svm.FUSED, k, true, window, sw, 32, pm, pv,
-            interpret=True, interleave=il))
-        return f(keys)
 
-    s0, l0 = run(False)
-    s1, l1 = run(True)
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-    np.testing.assert_array_equal(np.asarray(l0), np.asarray(l1))
+@pytest.mark.parametrize("n, ok", [(16, True), (1024, True), (8, False),
+                                   (1000, False), (96, False)])
+def test_supports_particles_power_of_two(n, ok):
+    assert supports_particles(n) is ok
+
+
+def test_window_kernel_rejects_unsupported_particle_count():
+    C, W, N = 1, 4, 24
+    with pytest.raises(ValueError, match="power-of-two"):
+        fused_window_batched(
+            svm.FUSED, jnp.ones((C, 3)), jnp.zeros((C, 1, N)),
+            jnp.zeros((C, W, 1, N)), jnp.zeros((C, W)), jnp.ones((C, W)),
+            jnp.zeros((C, W)), interpret=True)
+
+
+def test_window_kernel_lowers_for_gpu():
+    """The kernel traces through the Pallas Triton lowering at the
+    flagship width (N=1024, W=60): every primitive it uses has a GPU
+    lowering rule.  (Compiling and running it needs the card.)"""
+    C, W, N = 2, 60, 1024
+    args = (jnp.ones((C, 3), jnp.float32), jnp.zeros((C, 1, N), jnp.float32),
+            jnp.zeros((C, W, 1, N), jnp.float32),
+            jnp.zeros((C, W), jnp.float32), jnp.ones((C, W), jnp.float32),
+            jnp.zeros((C, W), jnp.float32))
+    f = jax.jit(lambda *a: fused_window_batched(svm.FUSED, *a,
+                                                ess_threshold=0.5))
+    text = f.trace(*args).lower(lowering_platforms=("cuda",)).as_text()
+    assert "fused_pf_window" in text

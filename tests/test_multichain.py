@@ -1,5 +1,5 @@
 """Multi-chain `fit_scan(num_chains=C)`: the first-class vmapped-chain
-surface (TPU-native form of the reference's shell-job-per-chain
+surface (accelerator form of the reference's shell-job-per-chain
 parallelism, `driver_utils.py:79`)."""
 import jax
 import jax.numpy as jnp
@@ -197,7 +197,7 @@ def test_fit_scan_mesh_explicit_mesh_matches_particle_devices(svm_obs):
     assert np.all(np.isfinite(np.asarray(trace.A)))
 
 
-def test_fit_scan_mesh_island_fused(svm_obs):
+def test_fit_scan_mesh_island_fused(svm_obs, interpret_kernels):
     s = SVMSampler(observations=jnp.asarray(svm_obs, jnp.float32), seed=3)
     s.parameters = svm_mod.from_scalars(A=0.5, Q=1.0, R=2.0,
                                         dtype=jnp.float32)

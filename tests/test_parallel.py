@@ -238,7 +238,7 @@ def test_sharded_ess_threshold_matches_kalman(mesh):
         np.mean(lls), exact_ll)
 
 
-def test_island_fused_distributed_step(mesh):
+def test_island_fused_distributed_step(mesh, interpret_kernels):
     """island_fused: the fused Pallas window kernel runs per particle shard
     (interpret mode on CPU) and the psum-averaged island scores drive a
     working SGLD step."""
@@ -330,7 +330,7 @@ def test_island_fused_expectation_matches_single_island_filter(mesh):
     diff = np.abs(isl.mean(axis=0) - sgl.mean(axis=0))
     assert np.all(diff < 5 * se + 0.05), (isl.mean(0), sgl.mean(0), se)
     # and both see the Kalman oracle through the N=16 Poyiadjis bias:
-    # loose sanity bound (the TPU-measured curve at N=64 is already
+    # loose sanity bound (the measured curve at N=64 is already
     # max|bias| < 0.1; N=16 here only needs the right order of magnitude)
     bias = np.abs(isl.mean(axis=0) - exact_vec)
     se_i = np.sqrt(isl.var(axis=0) / reps)
@@ -340,7 +340,7 @@ def test_island_fused_expectation_matches_single_island_filter(mesh):
 
 def test_island_bias_curve_artifact():
     """Regression-lock on the measured island-bias curve
-    (`scripts/island_bias_sweep.json`, TPU-measured): bias decays with
+    (`scripts/island_bias_sweep.json`): bias decays with
     island size, and the recommended minimum island size (256, the
     `make_distributed_sgld_step` warning threshold) keeps the island bias
     at or below the Nemeth lambda=0.95 bias the reference ships as a
@@ -373,7 +373,7 @@ def test_island_bias_curve_artifact():
         assert bias_256 <= nemeth * 1.1, (model, bias_256, nemeth)
 
 
-def test_island_fused_small_island_warns(mesh):
+def test_island_fused_small_island_warns(mesh, interpret_kernels):
     """make_distributed_sgld_step warns when island_fused would run with
     < 256 particles per device (the measured bias-curve threshold)."""
     import warnings
@@ -554,37 +554,27 @@ def test_two_process_cross_host_particle_sharding_agrees():
     assert a == b and np.isfinite(a), (a, b)
 
 
-def test_sharded_path_forwards_fused_kernel_config(monkeypatch):
-    """990cf56 regression class: `make_distributed_sgld_step` must forward
-    the PFScoreConfig's rng / ess_threshold / qp_merge / pipeline into the
-    fused Pallas kernel — a silently-dropped `rng='kernel'` once streamed
-    host normals and cost 3.5% on hardware (BENCH_NOTES).  Structural
-    check on the CPU mesh; the execution half runs in the RUN_TPU lane
-    (tests_tpu/test_tpu_hardware.py)."""
-    from sgmcmc_tpu.ops.pallas import fused_pf
-
+def test_sharded_path_forwards_fused_kernel_config(monkeypatch,
+                                                   interpret_kernels):
+    """`make_distributed_sgld_step` must forward the PFScoreConfig's
+    smoother lambda and ESS threshold into the fused window kernel, and
+    the dispatch's interpret flag (set here by the test fixture only)."""
     captured = {}
-    orig = fused_pf.fused_pf_score
+    orig = training.fused_pf_score
 
     def spy(*args, **kw):
-        for k in ("rng", "ess_threshold", "qp_merge", "pipeline"):
-            captured[k] = kw.get(k)
-        # execute with host RNG (the in-kernel TPU PRNG does not exist on
-        # the CPU interpret path); the assertion is about what the
-        # sharded builder FORWARDED, which is already captured
-        kw["rng"] = "host"
+        captured.update(kw)
         return orig(*args, **kw)
 
-    monkeypatch.setattr(fused_pf, "fused_pf_score", spy)
+    monkeypatch.setattr(training, "fused_pf_score", spy)
     T = 64
     true = svm.from_scalars(A=0.9, Q=0.5, R=1.0, dtype=jnp.float64)
     ys, _ = svm.generate_data(jax.random.PRNGKey(0), true, T)
     prior = svm.default_prior(dtype=jnp.float64)
     cfg = sgmcmc.PFScoreConfig(
         n_particles=64, subsequence_length=16, buffer_length=4,
-        smoother="poyiadjis_N", resampler="systematic", rng="kernel",
-        ess_threshold=0.5, qp_merge=2, pipeline=True,
-        resample_mode="fused")    # force the fused path off-TPU (interpret)
+        smoother="nemeth", lambduh=0.9, resampler="systematic",
+        ess_threshold=0.5, resample_mode="fused")
     mesh1 = sharding.make_mesh(n_chain_devices=2, n_particle_devices=1)
     step = training.make_distributed_sgld_step(
         svm.KERNEL, svm.grad_statistic, svm.STATISTIC_DIM, svm.unpack_grad,
@@ -597,5 +587,20 @@ def test_sharded_path_forwards_fused_kernel_config(monkeypatch):
         svm.from_scalars(A=0.5, Q=1.0, R=2.0, dtype=jnp.float64))
     new, ll = jax.jit(step)(keys, params0, ys)
     assert np.all(np.isfinite(np.asarray(ll)))
-    assert captured == dict(rng="kernel", ess_threshold=0.5, qp_merge=2,
-                            pipeline=True), captured
+    assert captured == dict(lambduh=0.9, interpret=True,
+                            ess_threshold=0.5), captured
+
+
+def test_island_fused_without_kernel_raises(mesh):
+    """island_fused on a platform without the window kernel raises instead
+    of running a different (global-resampling) estimator."""
+    cfg = sgmcmc.PFScoreConfig(n_particles=64, subsequence_length=8,
+                               buffer_length=2, smoother="poyiadjis_N",
+                               resampler="systematic", resample_mode="auto")
+    prior = svm.default_prior()
+    with pytest.raises(ValueError, match="island_fused"):
+        training.make_distributed_sgld_step(
+            svm.KERNEL, svm.grad_statistic, svm.STATISTIC_DIM,
+            svm.unpack_grad, lambda p: svm.grad_logprior(prior, p), cfg,
+            32, mesh, epsilon=0.05, fused_model=svm.get_fused(None),
+            island_fused=True)

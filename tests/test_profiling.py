@@ -1,4 +1,4 @@
-"""Profiling helpers: wall-clock split timer and device sync."""
+"""Profiling helpers: wall-clock split timer and profiler trace."""
 import jax.numpy as jnp
 
 from sgmcmc_tpu.utils import profiling
@@ -18,9 +18,16 @@ def test_timer_sections_accumulate():
     assert all(r["metric"] == "runtime" for r in rows)
 
 
-def test_sync_returns_scalar():
-    x = {"y": jnp.arange(4.0)}
-    assert profiling.sync(x) == 0.0
+def test_timer_section_records_on_exception():
+    """A section that raises still books its time (the split timer wraps
+    sampler steps that may fail, `evaluator.py:325-365`)."""
+    t = profiling.Timer()
+    try:
+        with t.section("fail"):
+            raise RuntimeError("boom")
+    except RuntimeError:
+        pass
+    assert t.counts == {"fail": 1} and t.totals["fail"] >= 0.0
 
 
 def test_trace_writes_profile(tmp_path):
